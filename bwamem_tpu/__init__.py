@@ -1,8 +1,8 @@
-"""tpu-bwa-mem: a TPU-native BWA-MEM-class short-read aligner.
+"""tpu-bwa-mem: a JAX BWA-MEM-class short-read aligner.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
 TianheYu/bwa-mem-harp2 (BWA-MEM 0.7.8 with FPGA-offloaded SMEM seeding).
-The seeding/extension hot loops run as batched TPU kernels; index
+The seeding/extension hot loops run as batched GPU kernels; index
 construction, finalization and SAM emission run on the host with
 bit-exact BWA-MEM 0.7.8 semantics.
 
@@ -14,7 +14,7 @@ Layering (bottom-up), mirroring SURVEY.md section 1:
   core/      the BWA-MEM pipeline: seeding -> chaining -> extension ->
              dedup/markprimary -> CIGAR/SAM, plus paired-end resolution
   io/        FASTQ chunk reader, SAM writer
-  parallel/  jax.sharding mesh utilities for multi-chip scale-out
+  parallel/  jax.sharding mesh utilities for multi-card scale-out
 """
 
 __version__ = "0.1.0"

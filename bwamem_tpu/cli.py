@@ -1,5 +1,5 @@
 """Command-line interface: the bwa command mux (reference:
-software/top.c:63-118) rebuilt for the TPU-native engine.
+software/top.c:63-118) rebuilt for the JAX device engine.
 
 Implemented commands: index, mem, fastmap, aln, samse, sampe, bwasw
 (+ bwtsw2/dbwtsw aliases), pemerge, fa2pac, pac2bwt, pac2bwtgen,
@@ -187,8 +187,8 @@ def main_mem(argv):
         elif c == "mesh":
             mesh_spec = val
         elif c == "shard-tables":
-            # HBM capacity mode: row-shard the occ/SA tables over the
-            # --mesh axis (gathers become ICI collectives, ops/fm.py)
+            # capacity mode: row-shard the occ/SA tables over the
+            # --mesh axis (gathers become collectives, ops/fm.py)
             os.environ["BWAMEM_TPU_SHARD_TABLES"] = "1"
         elif c == "shard":  # i/n: process chunks i, i+n, ... of the input
             parts = val.split("/")
@@ -232,29 +232,25 @@ def main_mem(argv):
                          % (dist_spec[2], dist_spec[1]))
 
     engine = None
-    if engine_kind not in ("auto", "tpu", "jax", "host"):
+    if engine_kind not in ("auto", "jax", "host"):
         sys.stderr.write(f"[E::main_mem] unknown --engine '{engine_kind}' "
-                         f"(expected auto|tpu|jax|host)\n")
+                         f"(expected auto|jax|host)\n")
         return 1
-    if engine_kind in ("auto", "tpu", "jax"):
-        try:
-            from .ops.engine import JaxSeedingEngine
-            mesh = None
-            if mesh_spec:  # --mesh N|auto: data-parallel over chips
-                import jax
-                from .parallel.mesh import make_mesh
-                n_dev = (len(jax.devices()) if mesh_spec == "auto"
-                         else int(mesh_spec))
-                if n_dev > 1:
-                    mesh = make_mesh(n_dev)
-                    sys.stderr.write("[M::main_mem] reads mesh over %d "
-                                     "devices\n" % n_dev)
-            engine = JaxSeedingEngine(fm, mesh=mesh)
-        except Exception as ex:  # pragma: no cover
-            if engine_kind != "auto":
-                raise
-            sys.stderr.write(f"[W::main_mem] device engine unavailable "
-                             f"({ex}); using host oracle\n")
+    if engine_kind == "auto":
+        engine_kind = auto_engine()
+    if engine_kind == "jax":
+        from .ops.engine import JaxSeedingEngine
+        mesh = None
+        if mesh_spec:  # --mesh N|auto: data-parallel over cards
+            import jax
+            from .parallel.mesh import make_mesh
+            n_dev = (len(jax.devices()) if mesh_spec == "auto"
+                     else int(mesh_spec))
+            if n_dev > 1:
+                mesh = make_mesh(n_dev)
+                sys.stderr.write("[M::main_mem] reads mesh over %d "
+                                 "devices\n" % n_dev)
+        engine = JaxSeedingEngine(fm, mesh=mesh)
 
     reader = make_chunk_reader(args[1],
                                args[2] if len(args) > 2 else None)
@@ -495,6 +491,14 @@ def main_sampe(argv):
 def main_bwasw(argv):
     from .legacy.bwasw import main_bwasw as _sw
     return _sw(argv)
+
+
+def auto_engine() -> str:
+    """`--engine auto`: the device engine when JAX's backend is an
+    accelerator, the host oracle engine on the CPU backend (tests,
+    hosts without a card).  Engine errors are never swallowed."""
+    import jax
+    return "host" if jax.default_backend() == "cpu" else "jax"
 
 
 def main(argv=None):

@@ -378,17 +378,6 @@ def flatten_chains(chains):
     return chain_off, seed_off, s_rbeg, s_qbeg, s_len
 
 
-def seed_read_ids(flat, n_reads: int) -> np.ndarray:
-    """Per-seed read index from the flat chain arrays (chain_off,
-    seed_off, ...): the one derivation of the flat tuple's layout,
-    shared by the native packer and the on-chip row builder."""
-    chain_off, seed_off = flat[0], flat[1]
-    counts = np.diff(np.ascontiguousarray(chain_off, np.int64))
-    chain_read = np.repeat(np.arange(n_reads, dtype=np.int32), counts)
-    return np.repeat(chain_read, np.diff(
-        np.ascontiguousarray(seed_off, np.int64))).astype(np.int32)
-
-
 def pack_extlr_native(opt, l_pac: int, pac_arr, reads, flat,
                       LQ: int, LT_max: int, force_scalar: bool = False):
     """Pack every seed's fused-extension request natively: returns a
@@ -403,8 +392,7 @@ def pack_extlr_native(opt, l_pac: int, pac_arr, reads, flat,
     chain_off, seed_off, s_rbeg, s_qbeg, s_len = flat
     n_chains = len(seed_off) - 1
     n_seeds = len(s_rbeg)
-    # per-chain read index from chain_off (seed_read_ids is the
-    # per-SEED form of the same derivation)
+    # per-chain read index from chain_off
     counts = np.diff(np.ascontiguousarray(chain_off, np.int64))
     chain_read = np.repeat(np.arange(len(reads), dtype=np.int32),
                            counts)

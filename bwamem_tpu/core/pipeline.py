@@ -4,7 +4,7 @@ mem_align1_core -> regions, mem_reg2sam_se, and mem_process_seqs
 (reference: software/bwamem.c:1359-1639, software/fastmap.c:35-252).
 
 The seeding stage runs through a pluggable engine: the default host
-oracle walks the SMEM iterator per read; the TPU engine
+oracle walks the SMEM iterator per read; the device engine
 (bwamem_tpu.ops.engine) produces identical chains from batched device
 kernels.  Everything downstream (chain filter, extension, dedup, SAM) is
 shared and bit-exact with the reference.
@@ -37,7 +37,7 @@ def encode_read(read) -> None:
 def align1_core(opt: MemOptions, fm, bns, pac, read,
                 chains=None, trace=None, trace_seeds=False) -> List[AlnReg]:
     """mem_align1_core: one read -> deduplicated alignment regions.
-    `chains` may be precomputed (e.g. by the batched TPU seeder)."""
+    `chains` may be precomputed (e.g. by the batched device seeder)."""
     from .region import drive_extension_gen
     gen = align1_core_gen(opt, fm, bns, pac, read, chains, trace,
                           trace_seeds)
@@ -270,7 +270,7 @@ def process_chunk_stream(opt: MemOptions, fm, bns, pac, chunks, pes0=None,
     (engine.chain_batch — the device-heavy stage) runs on a helper
     thread while chunk k's extension waves and finalization (the
     host-heavy stages) run on the main thread, so the device stays busy
-    through the host-side phases — the TPU analog of the reference's
+    through the host-side phases — the analog of the reference's
     manager thread running ahead of the worker threads
     (software/fastmap.c:320-429).  Output stays byte-identical: chunks
     are finalized and emitted strictly in input order, and `n_processed`

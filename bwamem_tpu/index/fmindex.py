@@ -12,7 +12,7 @@ Reproduces the reference index artifacts bit-for-bit:
   - .bwt/.sa dump/restore formats (software/bwt.c:841-918)
 
 Host-side occ/SA queries here are NumPy-vectorized transcriptions of
-bwt_occ/bwt_occ4/bwt_extend/bwt_sa semantics; the TPU equivalents live in
+bwt_occ/bwt_occ4/bwt_extend/bwt_sa semantics; the device equivalents live in
 bwamem_tpu.ops.
 """
 
@@ -132,7 +132,7 @@ class FmIndex:
     def blocks(self) -> np.ndarray:
         """Interleaved array as (n_blocks, 16) uint32 — one row is one
         64-byte occ block, the unit the FPGA gathers per extension step
-        and the row our TPU kernels gather from HBM."""
+        and the row our device kernels gather from device memory."""
         return self.bwt.reshape(-1, WORDS_PER_BLOCK)
 
     # ---- scalar/NumPy queries (host oracle path) ----------------------------

@@ -117,44 +117,19 @@ def ksw_extend2_batched(
 def _unpack4(p: jnp.ndarray, L: int) -> jnp.ndarray:
     """Expand the 4-bit-packed wire format (two bases per byte, values
     0..4 so the byte stays < 0x7F) back to one int8 base per column —
-    the SW waves are upload-bound over the ~35ms/20-70MB/s host link,
-    so sequences ship at 2 bases/byte."""
+    sequences ship at 2 bases/byte to halve the wave upload."""
     lo = (p & 0xF).astype(jnp.int8)
     hi = ((p >> 4) & 0xF).astype(jnp.int8)
     return jnp.stack([lo, hi], axis=-1).reshape(p.shape[0], L)
 
 
-def _use_pallas_extend() -> bool:
-    import os
-    v = os.environ.get("BWAMEM_TPU_PALLAS_EXTEND", "auto")
-    from .pallas_extend import extend_pallas_available
-    if not extend_pallas_available():
-        return False
-    if v == "auto":
-        return jax.default_backend() == "tpu"
-    return v != "0"
-
-
-def _use_pallas_global() -> bool:
-    import os
-    v = os.environ.get("BWAMEM_TPU_PALLAS_GLOBAL", "auto")
-    from .pallas_global import global_pallas_available
-    if not global_pallas_available():
-        return False
-    if v == "auto":
-        return jax.default_backend() == "tpu"
-    return v != "0"
-
-
 def _extend_impl(query, target, qlen, tlen, mat,
                  o_del, e_del, o_ins, e_ins, w_in, end_bonus, zdrop, h0,
-                 LQ: int, LT: int, active, pre_t: bool = False):
+                 LQ: int, LT: int, active):
     """Traceable body of ksw_extend2_batched; `active` (bool[B] or
     None) masks lanes off entirely (used by the fused left+right
-    kernel's masked band-retry passes).  `pre_t`: query/target arrive
-    already transposed ((L, B), e.g. built on-device by
-    ops.pallas_extbuild) — Mosaic path only."""
-    B = query.shape[1] if pre_t else query.shape[0]
+    kernel's masked band-retry passes)."""
+    B = query.shape[0]
     i32 = jnp.int32
     # sequences ship from the host as int8 (bases are 0..4) to quarter
     # the per-wave transfer volume; widen on-device
@@ -178,16 +153,6 @@ def _extend_impl(query, target, qlen, tlen, mat,
     max_del = jnp.maximum(max_del, 1)
     w = jnp.minimum(w, max_del)
 
-    if _use_pallas_extend():
-        from .pallas_extend import extend_pallas
-        done0 = tlen <= 0
-        if active is not None:
-            done0 = done0 | ~active
-        return extend_pallas(query, target, qlen.astype(i32),
-                             tlen.astype(i32), mat, o_del, e_del,
-                             o_ins, e_ins, w, zdrop, h0.astype(i32),
-                             done0, LQ, LT, pre_t=pre_t)
-    assert not pre_t, "pre-transposed extension requires the Mosaic kernel"
 
     jv = jnp.arange(LQ + 1, dtype=i32)[None, :]          # [1, LQ+1]
     jq = jnp.arange(LQ, dtype=i32)[None, :]              # [1, LQ]
@@ -223,7 +188,7 @@ def _extend_impl(query, target, qlen, tlen, mat,
         degen = beg >= end
         run = alive & ~degen
 
-        # row profile (mask-select: per-lane gathers serialize on TPU)
+        # row profile (mask-select over the 5x5 matrix)
         ii = jnp.clip(i, 0, LT - 1)
         tch = sel_col(target, ii)                                   # [B]
         qp = score_profile(mat55, tch, query)                       # [B, LQ]
@@ -359,12 +324,6 @@ def ksw_global2_batched(
     oe_del = o_del + e_del
     oe_ins = o_ins + e_ins
     w = w_in.astype(i32)
-
-    if _use_pallas_global():
-        from .pallas_global import global_pallas
-        return global_pallas(query, target, qlen.astype(i32),
-                             tlen.astype(i32), mat, o_del, e_del,
-                             o_ins, e_ins, w, LQ, LT)
 
     mat55 = mat.reshape(5, 5)
     jv = jnp.arange(LQ + 1, dtype=i32)[None, :]
@@ -514,29 +473,15 @@ def ksw_extend_lr_batched(
     """One seed's whole left+right extension with the x2 band-doubling
     retries on device (the C logic around ksw_extend2,
     software/bwamem.c:1120-1176; scalar twin core.swdrive.extend_seed_lr)
-    — ONE dispatch replaces up to four per-call waves, which dominates
-    when the host link costs ~35 ms per round trip.
+    — ONE dispatch replaces up to four per-call waves.
 
     Returns (score, truesc, qb, rb, qe, re, aw0, aw1): rb/re int64
     genome coordinates, the rest int32[B]."""
     if packed:
         lq, rq = _unpack4(lq, LQ), _unpack4(rq, LQ)
         lt, rt = _unpack4(lt, LT), _unpack4(rt, LT)
-    return _extend_lr_core(
-        lq, lt, llq, llt, rq, rt, rlq, rlt, mat, o_del, e_del, o_ins,
-        e_ins, w0, pc5, pc3, zdrop, sc_seed, s_qbeg, s_rbeg, rmax0,
-        l_query, s_len, LQ, LT)
-
-
-def _extend_lr_core(lq, lt, llq, llt, rq, rt, rlq, rlt, mat,
-                    o_del, e_del, o_ins, e_ins, w0, pc5, pc3, zdrop,
-                    sc_seed, s_qbeg, s_rbeg, rmax0, l_query, s_len,
-                    LQ, LT, pre_t: bool = False):
-    """Band-doubling left+right extension over unpacked lanes; `pre_t`
-    means the four sequence arrays are already (L, B) device values
-    (built on-device, ops.pallas_extbuild)."""
     i32 = jnp.int32
-    B = lq.shape[1] if pre_t else lq.shape[0]
+    B = lq.shape[0]
     w0v = jnp.full(B, w0, i32)
     w1v = jnp.full(B, w0 * 2, i32)
     pc5v = jnp.full(B, pc5, i32)
@@ -545,15 +490,13 @@ def _extend_lr_core(lq, lt, llq, llt, rq, rt, rlq, rlt, mat,
 
     has_l = llq > 0
     a0 = _extend_impl(lq, lt, llq, llt, mat, o_del, e_del, o_ins, e_ins,
-                      w0v, pc5v, zdrop, sc_seed, LQ, LT, has_l,
-                      pre_t=pre_t)
+                      w0v, pc5v, zdrop, sc_seed, LQ, LT, has_l)
     sc_a0, qle0, tle0, gtle0, gsc0, mo0 = a0
     # bwamem.c:1136-1138: break if score == prev (== -1 on attempt 0)
     # or max_off small; else retry at double band
     retry_l = has_l & (sc_a0 != -1) & (mo0 >= retry_hi)
     a1 = _extend_impl(lq, lt, llq, llt, mat, o_del, e_del, o_ins, e_ins,
-                      w1v, pc5v, zdrop, sc_seed, LQ, LT, retry_l,
-                      pre_t=pre_t)
+                      w1v, pc5v, zdrop, sc_seed, LQ, LT, retry_l)
 
     def pick(r, v0, v1):
         return jnp.where(r, v1, v0)
@@ -577,13 +520,11 @@ def _extend_lr_core(lq, lt, llq, llt, rq, rt, rlq, rlt, mat,
     has_r = rlq > 0
     sc0 = score
     b0 = _extend_impl(rq, rt, rlq, rlt, mat, o_del, e_del, o_ins, e_ins,
-                      w0v, pc3v, zdrop, sc0, LQ, LT, has_r,
-                      pre_t=pre_t)
+                      w0v, pc3v, zdrop, sc0, LQ, LT, has_r)
     sc_b0, rqle0, rtle0, rgtle0, rgsc0, rmo0 = b0
     retry_r = has_r & (sc_b0 != sc0) & (rmo0 >= retry_hi)
     b1 = _extend_impl(rq, rt, rlq, rlt, mat, o_del, e_del, o_ins, e_ins,
-                      w1v, pc3v, zdrop, sc0, LQ, LT, retry_r,
-                      pre_t=pre_t)
+                      w1v, pc3v, zdrop, sc0, LQ, LT, retry_r)
     rsc = pick(retry_r, sc_b0, b1[0])
     rqle = pick(retry_r, rqle0, b1[1])
     rtle = pick(retry_r, rtle0, b1[2])

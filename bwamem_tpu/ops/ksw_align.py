@@ -59,14 +59,6 @@ def ksw_align_batched(
     mat55 = mat.reshape(5, 5)
     shift = (-jnp.min(mat)).astype(i32) if size == 1 else jnp.int32(0)
 
-    from .ksw import _use_pallas_extend
-    if _use_pallas_extend():   # same gate: Mosaic available + TPU
-        from .pallas_align import align_pallas
-        return align_pallas(query, target, qlen.astype(i32),
-                            tlen.astype(i32), mat, o_del, e_del,
-                            o_ins, e_ins, endsc.astype(i32), shift,
-                            size, LQV, LT)
-
     sat = jnp.int32(255) - shift
 
     jq = jnp.arange(LQV, dtype=i32)[None, :]

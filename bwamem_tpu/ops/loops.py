@@ -1,22 +1,20 @@
 """Loop-body unrolling for the device while_loops.
 
-Measured on the TPU (tools/microbench_smem.py): one while_loop/scan
-iteration costs ~300-450 us of fixed overhead regardless of body size —
-a null body with (2048,) int64 carries times at ~420 us/iter while the
-full backward smem extend (a 65k-row occ gather plus popcounts) adds
-only ~70 us on top.  Compute inside an iteration is nearly free; the
-iteration COUNT is the cost.  Every kernel loop body here is a no-op
-for lanes whose `done` mask is set (updates are masked per lane), so
-running the body k times per while_loop iteration is semantically
-exact: the loop condition is simply checked k times less often, and
-any extra body applications after all lanes finish do nothing.  This
-divides the per-iteration overhead by k at the price of up to k-1
-wasted (no-op) body applications and a k-times larger compiled body.
+A device while_loop iteration carries a fixed cost (the loop predicate,
+and on the GPU one launch per fused body kernel) regardless of how much
+work its body does, so the iteration COUNT is the cost.  Every kernel
+loop body here is a no-op for lanes whose `done` mask is set (updates
+are masked per lane), so running the body k times per while_loop
+iteration is semantically exact: the loop condition is simply checked k
+times less often, and any extra body applications after all lanes
+finish do nothing.  This divides the per-iteration overhead by k at the
+price of up to k-1 wasted (no-op) body applications and a k-times
+larger compiled body.
 
 The FPGA analog: the reference's PE pipelines one bwt_extend per clock
 with no per-step control-flow cost (hardware/afu_core.v:4371-5402); the
-unroll recovers part of that by amortizing the TPU's per-step loop
-overhead over k algorithm steps.
+unroll recovers part of that by amortizing the per-step loop overhead
+over k algorithm steps.
 """
 
 import os

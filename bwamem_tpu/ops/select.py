@@ -1,11 +1,10 @@
 """Mask-select replacements for per-lane dynamic gather/scatter.
 
-XLA lowers a TPU gather/scatter with per-lane dynamic indices to one
-serialized copy per lane (~us each) — at 2048 lanes that turns every
-"read one element per lane" into milliseconds.  Over small static axes
-(interval buffers M<=48, sequence caps L<=544, score profiles of 25)
-a compare+masked-sum is pure vector work and orders of magnitude
-faster.  These helpers are the batched-kernel building blocks used by
+Over small static axes (interval buffers M<=48, sequence caps L<=544,
+score profiles of 25) a compare+masked-sum reads "one element per lane"
+as pure elementwise work that XLA fuses into its neighbours, instead of
+a separate per-lane dynamic gather or scatter.
+These helpers are the batched-kernel building blocks used by
 ops.smem and ops.ksw (the same trade the reference's RTL makes by
 addressing BRAM lines with one-hot word enables,
 hardware/afu_core.v:5946-5969).

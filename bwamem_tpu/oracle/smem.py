@@ -14,7 +14,7 @@ Intervals are (x0, x1, s, info) tuples:
   s  = interval size (number of occurrences),
   info = packed (start<<32 | end) query coordinates.
 
-The batched TPU implementation (bwamem_tpu.ops.smem) is verified to
+The batched device implementation (bwamem_tpu.ops.smem) is verified to
 produce identical interval lists.
 """
 

@@ -2,14 +2,14 @@
 
 The reference's parallelism is N CPU worker threads multiplexing one
 FPGA through a manager-thread mailbox (software/fastmap.c:320-429,
-kthread_batch.c).  The TPU-native replacement (SURVEY.md §2.4) is a
-1-D `reads` mesh: the FM-index tables are replicated per chip (the
+kthread_batch.c).  The device replacement (SURVEY.md §2.4) is a
+1-D `reads` mesh: the FM-index tables are replicated per card (the
 analog of the one-time 3 GB SPL_BWT_ref upload, software/bwa.c:286-301),
-read batches are sharded across chips, and the only cross-chip
+read batches are sharded across cards, and the only cross-card
 communication in the whole pipeline is the insert-size-statistics
 reduction between worker1 and worker2 (mem_pestat over the whole chunk,
 software/bwamem.c:1631-1634) — expressed as a psum over per-shard
-orientation histograms riding ICI.
+orientation histograms.
 """
 
 from functools import partial
@@ -126,7 +126,7 @@ class ShardedKernels:
 
     With `shard_tables=True` the occ-block table and the sampled SA are
     additionally ROW-SHARDED over the same mesh axis (for genomes whose
-    tables exceed one chip's HBM — the analog of the reference keeping
+    tables exceed one card's memory — the analog of the reference keeping
     the 3 GB BWT in host DRAM and fetching blocks per-step over CCI-P,
     SURVEY.md §2.4); every table gather inside the seeding/SA kernels
     then runs as all_gather(indices) -> local gather -> psum_scatter
@@ -167,12 +167,8 @@ class ShardedKernels:
         return wrapped
 
     def superstep(self, blocks, primary, L2, q, qlen, mi, active, slens,
-                  swid, *, L, M, OUT_CAP, NEED_X1, PALLAS=False):
+                  swid, *, L, M, OUT_CAP, NEED_X1):
         from ..ops.smem import smem_superstep
-        # PALLAS is accepted for signature parity with the single-chip
-        # path but stays off under the mesh: the XLA impl's gathers are
-        # what become collectives when the tables are sharded
-        del PALLAS
         rs = (P(READS_AXIS, None), P(), P()) if self.shard_tables else None
         fn = self._wrap("superstep", smem_superstep.__wrapped__, 3, 6, 7,
                         dict(L=L, M=M, OUT_CAP=OUT_CAP, NEED_X1=NEED_X1),

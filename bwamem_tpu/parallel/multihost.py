@@ -1,4 +1,4 @@
-"""Multi-host scale-out (pod slices) via jax.distributed.
+"""Multi-host scale-out via jax.distributed.
 
 The reference is strictly single-host/single-FPGA (SURVEY.md §2.4:
 "no NCCL/MPI/Gloo and no multi-node capability"); scale-out is new
@@ -10,8 +10,8 @@ surface this framework adds.  The model:
   one-time per-host SPL_BWT_ref upload),
 - device batches shard over the GLOBAL reads mesh; the pestat
   orientation histogram is the only cross-host collective
-  (parallel.mesh.pestat_histograms rides ICI within a slice and DCN
-  across slices),
+  (parallel.mesh.pestat_histograms: the cards' own links within a host,
+  the network between hosts),
 - SAM output stays shard-local; ordering within a shard matches the
   reference because `n_processed` numbering is per-shard deterministic
   (mem_mark_primary_se hash tie-breaks, software/bwamem.c:761).
@@ -29,7 +29,7 @@ import jax
 
 def initialize(coordinator_address: str, num_processes: int,
                process_id: int) -> None:
-    """Bring up the jax.distributed runtime (DCN rendezvous)."""
+    """Bring up the jax.distributed runtime (network rendezvous)."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)

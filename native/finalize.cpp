@@ -12,7 +12,7 @@
 //   aln2sam           byte-exact SAM formatting incl. SA tags
 //
 // The banded global realignments run here on the host (the regions are
-// tiny; one scalar DP is ~50us) instead of as device waves — the TPU
+// tiny) instead of as device waves — the device
 // keeps the seeding/SMEM/extension stages, mirroring the reference's
 // accelerator/CPU split (SURVEY.md §1).
 

@@ -12,7 +12,7 @@
 //                        positionally (one result per flattened seed)
 //   mem_sort_and_dedup + mem_test_and_remove_exact
 //
-// The banded extensions themselves stay on the TPU (the speculative
+// The banded extensions themselves stay on the device (the speculative
 // extend_lr wave, ops/engine.py); this code only replays the exact
 // serial bookkeeping that decides which results become regions.
 

@@ -15,7 +15,7 @@ def run_mem(args):
     old = sys.stdout
     sys.stdout = out
     try:
-        ret = cli.main_mem(args)
+        ret = cli.main_mem(["--engine", "jax"] + args)
     finally:
         sys.stdout = old
     assert ret == 0
@@ -44,3 +44,33 @@ def test_mem_pe(data_dir):
                     os.path.join(data_dir, "reads_1.fq"),
                     os.path.join(data_dir, "reads_2.fq")])
     assert ours == load_golden(os.path.join(data_dir, "golden_pe.sam"))
+
+
+@pytest.mark.parametrize("backend,want", [("cpu", "host"), ("gpu", "jax")])
+def test_auto_engine_by_backend(monkeypatch, backend, want):
+    """--engine auto: the device engine on an accelerator backend, the
+    host oracle engine on the CPU backend."""
+    import jax
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    assert cli.auto_engine() == want
+
+
+def test_mem_auto_engine_matches_golden(data_dir):
+    out = io.StringIO()
+    old = sys.stdout
+    sys.stdout = out
+    try:
+        ret = cli.main_mem([os.path.join(data_dir, "genome.fa"),
+                            os.path.join(data_dir, "reads_se.fq")])
+    finally:
+        sys.stdout = old
+    assert ret == 0
+    assert [l for l in out.getvalue().split("\n")
+            if not l.startswith("@PG")] == \
+        load_golden(os.path.join(data_dir, "golden_se.sam"))
+
+
+def test_mem_rejects_unknown_engine(data_dir):
+    assert cli.main_mem(["--engine", "fpga",
+                         os.path.join(data_dir, "genome.fa"),
+                         os.path.join(data_dir, "reads_se.fq")]) == 1

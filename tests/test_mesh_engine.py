@@ -3,7 +3,7 @@
 
 Every engine dispatch (SMEM superstep, SA lookup, extend/extend_lr/
 global waves) runs shard_map'd with the index replicated and the lane
-axis split (parallel/mesh.py ShardedKernels) — the TPU mapping of the
+axis split (parallel/mesh.py ShardedKernels) — the device mapping of the
 reference's N-workers-one-FPGA parallelism (SURVEY.md §2.4).
 """
 

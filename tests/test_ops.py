@@ -168,37 +168,33 @@ def test_graft_entry_dryrun():
     ge.dryrun_multichip(min(8, len(jax.devices())))
 
 
-def test_pallas_occ4_interpret_parity(ref_index, dfm):
-    """The Pallas occ-gather kernel (interpret mode on CPU) must match
-    the XLA occ4 path exactly."""
-    import bwamem_tpu.ops.pallas_occ as po
-    fm, _ = ref_index
-    wide = po.wide_blocks(dfm.blocks)
-    rng = np.random.default_rng(7)
-    ks = jnp.asarray(np.concatenate(
-        [[-1, 0, fm.seq_len - 1], rng.integers(0, fm.seq_len, 61)]
-    ).astype(np.int64))
-    a = dfm_mod.occ4(dfm.blocks, dfm.primary, ks)
-    orig = po.gather_rows_pallas
-    po.gather_rows_pallas = lambda b, blk: orig(b, blk, interpret=True)
-    try:
-        b = po.occ4_via_pallas(wide, dfm.primary, ks)
-    finally:
-        po.gather_rows_pallas = orig
-    np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-
-
-def test_pallas_onehot_gather_interpret_parity(dfm):
-    """The generated-one-hot matmul gather kernel (interpret mode on
-    CPU) must reproduce the plain row gather exactly."""
-    from bwamem_tpu.ops import pallas_onehot as oh
+def test_gather_rows_is_the_plain_row_gather(dfm):
+    """The occ-row gather is the plain table row gather, for any index
+    shape (the one gather the device path uses)."""
     rng = np.random.default_rng(11)
     n_blocks = int(dfm.blocks.shape[0])
-    blk = jnp.asarray(rng.integers(0, n_blocks, (2, 7, 5)).astype(np.int64))
-    tab = oh.onehot_table(dfm.blocks)
-    got = oh.gather_rows_onehot(tab, blk, interpret=True)
-    want = dfm.blocks[blk]
-    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    blk = rng.integers(0, n_blocks, (2, 7, 5)).astype(np.int32)
+    got = dfm_mod._gather_rows(dfm.blocks, jnp.asarray(blk))
+    assert got.shape == (2, 7, 5, 16) and got.dtype == jnp.uint32
+    np.testing.assert_array_equal(np.asarray(got),
+                                  np.asarray(dfm.blocks)[blk])
+
+
+def test_occ4_forced_int64_matches_host(ref_index, monkeypatch):
+    """occ4 with int64 coordinates (the >1 Gbp dtype, forced on the
+    bundled genome) reads the 64-bit checkpoint words exactly."""
+    monkeypatch.setenv("BWAMEM_TPU_FORCE_I64", "1")
+    fm, _ = ref_index
+    d64 = dfm_mod.DeviceFmIndex.from_host(fm)
+    assert d64.cdt == jnp.int64 and d64.blocks.shape[1] == 16
+    rng = np.random.default_rng(7)
+    ks = np.concatenate(
+        [[-1, 0, fm.seq_len - 1, fm.primary, fm.primary + 1],
+         rng.integers(0, fm.seq_len, 61)]).astype(np.int64)
+    got = np.asarray(dfm_mod.occ4(d64.blocks, d64.primary,
+                                  jnp.asarray(ks)))
+    want = np.stack([fm.occ4(int(k)) for k in ks])
+    np.testing.assert_array_equal(got, want)
 
 
 def test_smem_forced_int64_path(ref_index, queries, monkeypatch):

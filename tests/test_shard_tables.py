@@ -1,7 +1,7 @@
-"""Sharded index tables (HBM capacity mode): the occ-block table and
+"""Sharded index tables (capacity mode): the occ-block table and
 the sampled SA row-sharded over the mesh, with every gather running as
 all_gather(indices) -> local gather -> psum_scatter (ops/fm.py
-table_axis).  This is the TPU mapping of the reference keeping its 3 GB
+table_axis).  This is the device mapping of the reference keeping its 3 GB
 BWT in host DRAM and fetching 64-byte blocks per extension step over
 CCI-P (software/HelloALINLB.cpp:59-63, hardware/afu_core.v:1428-1432) —
 and the final scale-out stage of SURVEY.md §7 step 8.  Must be
@@ -67,7 +67,8 @@ def test_sharded_tables_cli_golden(data_dir, monkeypatch):
     old = sys.stdout
     sys.stdout = out
     try:
-        ret = cli.main_mem(["--mesh", "8", "--shard-tables",
+        ret = cli.main_mem(["--engine", "jax", "--mesh", "8",
+                            "--shard-tables",
                             os.path.join(data_dir, "genome.fa"),
                             os.path.join(data_dir, "reads_se.fq")])
     finally:

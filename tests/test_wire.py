@@ -9,7 +9,17 @@ from bwamem_tpu.ops.ksw import (ksw_extend2_batched, ksw_global2_batched,
                                 cigar_from_traceback,
                                 cigars_from_tracebacks)
 from bwamem_tpu.ops.engine import _pack4
-from tests.test_pallas_extend import _mat
+
+
+def _mat():
+    m = np.zeros(25, np.int32)
+    for i in range(4):
+        for j in range(4):
+            m[i * 5 + j] = 1 if i == j else -4
+    for k in range(5):
+        m[k * 5 + 4] = -1
+        m[4 * 5 + k] = -1
+    return m
 
 
 def _case(seed, B=8, LQ=32, LT=64):

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Large-genome bench dataset: a multi-Mbp random reference whose occ
-table exceeds the one-hot matmul cap (BWAMEM_TPU_ONEHOT_BLOCKS), forcing
-the large-table gather path end to end — the regime production genomes
-(GRCh37 etc.) live in.  Generates genome + bwa-format index + SE reads
-into a work directory (not committed; regenerate on demand):
+"""Large-genome dataset: a multi-Mbp i.i.d. random reference (two
+contigs, a few N holes, one 15 kbp repeat) whose occ table is far past
+the card's L2 cache — the regime production genomes (GRCh37 etc.) live
+in.  Generates genome + bwa-format index + SE reads into a work
+directory (not committed; regenerate on demand):
 
-    python tools/make_biggenome.py /tmp/bigref --mbp 4 --n-se 2000
-    BWAMEM_TPU_BENCH_DATA=/tmp/bigref python bench.py
+    python tools/make_biggenome.py bigref --mbp 4 --n-se 2000
+    BWAMEM_TPU_BENCH_DATA=bigref python bench.py
+
+--no-index writes the FASTA (and reads) only, for callers that index
+with `bwamem_tpu.cli index` themselves.
 """
 import argparse
 import os
@@ -28,6 +31,7 @@ def main():
     ap.add_argument('--n-pe', type=int, default=0)
     ap.add_argument('--seed', type=int, default=20260817)
     ap.add_argument('--read-len', type=int, default=101)
+    ap.add_argument('--no-index', action='store_true')
     args = ap.parse_args()
     os.makedirs(args.outdir, exist_ok=True)
 
@@ -81,6 +85,8 @@ def main():
         write_fastq(os.path.join(args.outdir, "reads_2.fq"), r2)
         print("pairs written:", len(r1))
 
+    if args.no_index:
+        return
     t0 = time.perf_counter()
     from bwamem_tpu.index.build import build_index
     build_index(fa)

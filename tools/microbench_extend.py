@@ -1,11 +1,14 @@
-"""A/B: pallas_extend vs XLA _extend_impl on realistic wave shapes."""
+"""Time one banded-extension wave (the XLA row loop, ksw._extend_impl)
+on realistic wave shapes:
+
+    python tools/microbench_extend.py
+"""
 import os
 import sys
 import time
 
 sys.path.insert(0, os.path.join(os.path.dirname(
     os.path.abspath(__file__)), ".."))
-os.environ["BWAMEM_TPU_PALLAS_EXTEND"] = "0"   # keep ksw on XLA path
 
 import numpy as np
 import jax
@@ -14,7 +17,6 @@ import jax.numpy as jnp
 from functools import partial
 
 from bwamem_tpu.ops import ksw
-from bwamem_tpu.ops.pallas_extend import extend_pallas
 
 B, LQ, LT = 512, 128, 544
 rng = np.random.default_rng(0)
@@ -51,28 +53,9 @@ def xla_path(*a, LQ, LT):
     return ksw._extend_impl(*a, LQ, LT, None)
 
 
-@partial(jax.jit, static_argnames=("LQ", "LT", "o_del", "e_del",
-                                   "o_ins", "e_ins", "zdrop"))
-def pal_path(query, target, qlen, tlen, mat, o_del, e_del, o_ins,
-             e_ins, w_in, end_bonus, zdrop, h0, LQ, LT):
-    i32 = jnp.int32
-    qlen_f = qlen.astype(jnp.float64)
-    max_sc = jnp.max(mat).astype(i32)
-    mi = jnp.maximum((((qlen_f * max_sc + end_bonus - o_ins) / e_ins
-                       + 1.0)).astype(i32), 1)
-    md = jnp.maximum((((qlen_f * max_sc + end_bonus - o_del) / e_del
-                       + 1.0)).astype(i32), 1)
-    wc = jnp.minimum(jnp.minimum(w_in, mi), md)
-    return extend_pallas(query.astype(i32), target.astype(i32),
-                         qlen, tlen, mat, o_del, e_del, o_ins, e_ins,
-                         wc, zdrop, jnp.maximum(h0, 0), tlen <= 0,
-                         LQ, LT)
-
-
 def timed(fn, n=20):
     r = fn()
     jax.block_until_ready(r)
-    time.sleep(float(os.environ.get("MB_SETTLE", "5")))
     t0 = time.perf_counter()
     for _ in range(n):
         r = fn()
@@ -85,23 +68,5 @@ t0 = time.perf_counter()
 rx = xla_path(*args, LQ=LQ, LT=LT)
 jax.block_until_ready(rx)
 print(f"xla compile+run {time.perf_counter()-t0:.1f}s")
-t0 = time.perf_counter()
-rp = pal_path(*args, LQ=LQ, LT=LT)
-jax.block_until_ready(rp)
-print(f"pallas compile+run {time.perf_counter()-t0:.1f}s")
-
-ok = all(np.array_equal(np.asarray(a), np.asarray(b))
-         for a, b in zip(rx, rp))
-print("parity:", "OK" if ok else "MISMATCH")
-if not ok:
-    for nm, a, b in zip(["best", "qle", "tle", "gtle", "gsc", "moff"],
-                        rx, rp):
-        a, b = np.asarray(a), np.asarray(b)
-        if not np.array_equal(a, b):
-            idx = np.nonzero(a != b)[0][:5]
-            print(" ", nm, idx, a[idx], b[idx])
-
 tx = timed(lambda: xla_path(*args, LQ=LQ, LT=LT))
-tp = timed(lambda: pal_path(*args, LQ=LQ, LT=LT))
-print(f"xla   : {tx*1e3:.2f} ms/wave")
-print(f"pallas: {tp*1e3:.2f} ms/wave  ({tx/tp:.1f}x)")
+print(f"xla: {tx*1e3:.3f} ms/wave ({B} lanes, LQ={LQ}, LT={LT})")

@@ -4,8 +4,6 @@ Times, per while_loop-iteration equivalent:
   - extend on (B,) lanes (the forward-pass shape)
   - extend on (B, M) lanes (the backward-pass shape)
   - a full smem_iter_step round on real reads
-Run with BWAMEM_TPU_ONEHOT_BLOCKS=0 to force the plain-gather path or
-a large value to force one-hot, to compare gather strategies.
 """
 import os
 import sys

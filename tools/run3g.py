@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """The canonical human-scale regime end to end (round-3 verdict #1):
-align reads against a >=3 Gbp reference (int64 coordinates, the wide
-DMA-wave kernels) in ONE process so the 3 GB table uploads once.
+align reads against a >=3 Gbp reference (int64 coordinates) in ONE
+process so the 3 GB table uploads once.
 
     # host reference SAM (CPU, any time):
-    python tools/run3g.py host /tmp/ref3g 2000 > /tmp/host3g.sam
-    # TPU: diff-aligns the same reads, byte-compares, then benches:
-    python tools/run3g.py tpu /tmp/ref3g 2000 --bench-chunks 8
+    python tools/run3g.py host ref3g 2000 > host3g.sam
+    # device: diff-aligns the same reads, byte-compares, then benches:
+    python tools/run3g.py device ref3g 2000 --bench-chunks 8
 
 Matches the reference's published workload shape: `mem` vs
 human_g1k_v37-scale reference (software/run.sh:1, README.md:13-17),
@@ -29,7 +29,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("mode", choices=["host", "tpu"])
+    ap.add_argument("mode", choices=["host", "device"])
     ap.add_argument("data")
     ap.add_argument("n_diff", type=int, default=2000)
     ap.add_argument("--bench-chunks", type=int, default=0)
@@ -50,14 +50,13 @@ def main():
           f"(seq_len={int(fm.seq_len)})", file=sys.stderr)
 
     engine = None
-    if args.mode == "tpu":
+    if args.mode == "device":
         from bwamem_tpu.ops.engine import JaxSeedingEngine
         t1 = time.time()
         engine = JaxSeedingEngine(fm)
         sdr = engine.seeder
         print(f"[run3g] engine up in {time.time()-t1:.1f} s; "
-              f"cdt={sdr.dfm.cdt} pallas={sdr.pallas_mode} "
-              f"sa={sdr.sa_pallas_mode} sa_intv={sdr.dfm.sa_intv}",
+              f"cdt={sdr.dfm.cdt} sa_intv={sdr.dfm.sa_intv}",
               file=sys.stderr)
 
     opt = MemOptions()

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""One-process TPU evaluation on any dataset dir: SE diff vs a host
+"""One-process device evaluation on any dataset dir: SE diff vs a host
 SAM, SE bench, PE diff, PE bench — the device tables upload once
 (at 256 Mbp+ the upload dominates a per-run process).
 
